@@ -2,7 +2,7 @@
 //
 // The reference workflow (reference pyloo/utils.py:21-79) ingests the whole
 // (n_obs, n_draws) array through arviz, which caps it at host RAM.  The
-// TPU-native streaming estimators (pyloo_tpu/streaming.py) only ever need one
+// accelerator-native streaming estimators (pyloo_tpu/streaming.py) only ever need one
 // chunk of rows at a time, so the loader's job is to keep the *next* chunk's
 // disk read overlapped with the current chunk's device compute.  This file
 // implements that as a single background producer thread pread()ing into a

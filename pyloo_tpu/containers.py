@@ -1,4 +1,4 @@
-"""Lightweight labeled-array containers (TPU-native substrate).
+"""Lightweight labeled-array containers (accelerator-native substrate).
 
 The reference library (jordandeklerk/pyloo) builds its data layer on
 ``xarray.DataArray`` / ``arviz.InferenceData`` (see reference

@@ -18,7 +18,7 @@ the fit.  Ratios are Pareto-smoothed; when the shape diagnostic exceeds
 ``y_{0:i-1}`` and the sweep continues from there (the target at a refit
 point uses the new draws directly — an *exact* predictive contribution).
 
-TPU-native structure: within one fit block, the ratio rows for every
+accelerator-native structure: within one fit block, the ratio rows for every
 remaining target come from one cumulative sum over the future
 log-likelihood matrix (host-deterministic float64 — see
 :func:`_block_scores`), and all their PSIS fits run as one batched device

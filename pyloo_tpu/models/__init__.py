@@ -1,7 +1,7 @@
 """Model bridge: JAX-native samplers, wrappers, and example models.
 
 The reference integrates with PyMC (reference ``pyloo/wrapper/pymc/``); this
-package provides the capability-equivalent TPU-native stack: pure-function
+package provides the capability-equivalent accelerator-native stack: pure-function
 log-density models, an adaptive HMC sampler (vmapped chains, scan over
 steps), variational fits (Laplace/ADVI), and a wrapper protocol powering
 refit-based workflows (reloo, k-fold CV, moment matching).

@@ -3,7 +3,7 @@
 Capability-equivalent to the reference's ADVI support surface
 (``pyloo/wrapper/pymc/utils.py:37-216``: approximation-parameter extraction,
 ``compute_log_p`` / ``compute_log_q`` / ``compute_log_weights``) — but
-TPU-native: the ELBO is maximized with optax Adam under the reparameterization
+accelerator-native: the ELBO is maximized with optax Adam under the reparameterization
 trick, fully jitted, with vmapped Monte-Carlo gradients.
 """
 

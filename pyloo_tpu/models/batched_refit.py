@@ -2,7 +2,7 @@
 
 The reference's K-fold loop refits serially: K full MCMC runs one after the
 other, each a deepcopy of the wrapper plus a ``pm.sample`` call (reference
-``pyloo/loo_kfold.py:607-672``).  On TPU the K training sets are just one
+``pyloo/loo_kfold.py:607-672``).  On the device the K training sets are just one
 more batch axis: equal-sized folds give identically-shaped training
 subsets, so one jitted program runs warmup + sampling for all
 ``K x chains`` trajectories simultaneously and evaluates every fold's

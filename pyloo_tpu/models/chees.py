@@ -7,7 +7,7 @@ the Change in the Estimator of the Expected Square (ChEES) criterion
     ChEES = 1/4 E[ (||q' - E q'||^2 - ||q - E q||^2)^2 ]
 
 by Adam on log trajectory time, with per-iteration halton-jittered lengths.
-This is the TPU-native answer to NUTS: every chain runs the *same* number of
+This is the accelerator-native answer to NUTS: every chain runs the *same* number of
 leapfrog steps per iteration (SIMD lockstep, one jitted program), whereas
 NUTS's per-chain dynamic tree building serializes on the slowest chain and
 defeats batching.  Cross-chain expectations come free because chains are a
@@ -228,7 +228,7 @@ def sample_chees(
 
     The ChEES criterion is a cross-chain expectation, so its gradient is
     noisy at few chains — the default is 16 chains (the paper uses up to
-    128; chains are a batch dimension on TPU, so more chains cost little).
+    128; chains are a batch dimension on the device, so more chains cost little).
     ``step_size_jitter`` (fraction, default 0.2) draws each chain's step
     size uniformly in ``eps * [1-j, 1+j]`` per iteration while keeping the
     leapfrog step count shared across chains.

@@ -1,6 +1,6 @@
 """Adaptive Hamiltonian Monte Carlo in JAX (vmapped chains, scanned steps).
 
-TPU-native replacement for the reference's dependence on ``pm.sample``
+accelerator-native replacement for the reference's dependence on ``pm.sample``
 (reference ``pyloo/wrapper/pymc/pymc.py:383-457``): chains are a batch
 dimension (vmap), the step loop is a ``lax.scan``, and the whole sampler jits
 into one XLA program.  Warmup follows the Stan scheme: dual-averaging step

@@ -1,7 +1,7 @@
 """No-U-Turn Sampler in JAX: iterative tree building, vmapped chains.
 
 The reference relies on PyMC's NUTS through ``pm.sample`` (reference
-``pyloo/wrapper/pymc/pymc.py:383-457``).  This is a TPU-native
+``pyloo/wrapper/pymc/pymc.py:383-457``).  This is an accelerator-native
 re-implementation of multinomial NUTS (Hoffman & Gelman 2014; multinomial
 state sampling and generalized stopping per Betancourt 2017) built for
 XLA's compilation model:

@@ -5,10 +5,10 @@ Restores the reference's actual-PyMC refit surface
 a JAX backend (``pymc.sampling.jax.get_jaxified_graph``, the same bridge its
 NumPyro/BlackJAX samplers use), so a fitted ``pm.Model``'s log joint,
 pointwise log-likelihood, and constrained<->unconstrained transforms compile
-into jittable functions that run on TPU.  The resulting
+into jittable functions that run on the device.  The resulting
 :class:`pyloo_tpu.models.Model` powers ``reloo`` / ``loo_kfold`` /
 ``loo_moment_match`` with *this package's* JAX NUTS/HMC doing the refits —
-the TPU-first replacement for the reference's ``pm.sample`` round-trips
+the accelerator-first replacement for the reference's ``pm.sample`` round-trips
 (``pymc.py:383-457``).
 
 Leave-out semantics are functional rather than data-surgical: instead of
@@ -287,7 +287,7 @@ class PyMCWrapper(JAXModelWrapper):
     backend into this package's functional form, the constrained posterior
     is forward-transformed into the flat unconstrained draws the refit
     workflows consume, and refits (``reloo``, ``loo_kfold``,
-    ``loo_moment_match``) run with this package's JAX NUTS/HMC on TPU —
+    ``loo_moment_match``) run with this package's JAX NUTS/HMC on the device —
     instead of ``pm.sample`` round-trips.
 
     ``bridge`` holds the compiled :class:`PyTensorJaxBridge` (None when

@@ -1,6 +1,6 @@
 """Functional model description and posterior fitting.
 
-The TPU-native counterpart of the reference's PyMC coupling: a model is a
+The accelerator-native counterpart of the reference's PyMC coupling: a model is a
 pair of pure functions (unconstrained log joint, pointwise log likelihood)
 over a flat parameter vector, plus metadata to name/reshape/constrain draws.
 Everything downstream (HMC, Laplace, ADVI, refitting workflows) composes from
@@ -122,7 +122,7 @@ def fit(
     ``chains`` defaults per algorithm: 4 for HMC/NUTS, 16 for ChEES — the
     ChEES trajectory-length gradient is a cross-chain expectation and is
     noisy at few chains (the paper runs up to 128; chains are a batch
-    dimension on TPU, so more cost little).  Pass ``chains=`` explicitly to
+    dimension on the device, so more cost little).  Pass ``chains=`` explicitly to
     override.
 
     Returns an :class:`InferenceData` with ``posterior`` (constrained,
@@ -278,7 +278,7 @@ class JAXModelWrapper:
                 "JAXModelWrapper requires a pyloo_tpu Model (pure jittable"
                 " logp/log_lik functions), got"
                 f" {type(model).__module__}.{type(model).__name__}. PyTensor"
-                "/PyMC graphs cannot run on TPU — port the model's logp to a"
+                "/PyMC graphs cannot run on the device — port the model's logp to a"
                 " jittable function (see pyloo_tpu.models.examples for"
                 " templates)."
             )

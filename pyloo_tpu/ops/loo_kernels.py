@@ -11,16 +11,14 @@ Two PSIS variants share one scoring core (:func:`_psis_tail_scores`):
 * ``loo_scores_psis`` — the REFERENCE-EXACT path (float64 semantics:
   NaN-poisoning ``gpinv`` on sigma <= 0, strict-``>`` tie membership,
   reference ``pyloo/psis.py:114-231``).  Selection uses the exact f64
-  segmented cascade (comparisons don't pay the f64-emulation tax — measured
-  99 ms vs 339 ms for full-width ``lax.top_k`` at 62.5k x 4000 on v5e), and
-  the GPD fit runs the reference-verbatim LINEAR-domain formulas
+  segmented cascade directly on the float64 rows, and the GPD fit runs the
+  reference-verbatim LINEAR-domain formulas
   (:func:`~pyloo_tpu.ops.psis._gpdfit_batch_linear` — exceedances of
-  max-shifted weights are <= 1, so linear f64 cannot overflow even under
-  TPU's float32-exponent-range emulation).
-* ``loo_scores_psis_fast`` — the float32 throughput path (Pallas fused
-  prepass / segmented cascade); diverges from the reference only on fit
-  degeneracies (sigma <= 0 rows keep their unsmoothed tail) and reports
-  those rows in a fourth per-row ``degenerate`` output.
+  max-shifted weights are <= 1, so the linear pipeline cannot overflow).
+* ``loo_scores_psis_fast`` — the float32 throughput path (segmented
+  cascade); diverges from the reference only on fit degeneracies
+  (sigma <= 0 rows keep their unsmoothed tail) and reports those rows in a
+  fourth per-row ``degenerate`` output.
 
 Both are scatter-free.  Identity making this possible: with
 ``x = -ll - C`` (C the row max of ``-ll``), every non-tail element satisfies
@@ -35,7 +33,6 @@ into the ``(B, S)`` array, no full sort.
 
 from __future__ import annotations
 
-import math
 from functools import partial
 
 import jax
@@ -56,7 +53,6 @@ from .psis import (
 __all__ = [
     "loo_scores_psis",
     "loo_scores_psis_fast",
-    "loo_scores_psis_fast_tiled",
     "loo_scores_sis",
     "loo_scores_tis",
     "mixture_scores",
@@ -178,11 +174,10 @@ def _psis_tail_scores(
             y_quart = jnp.take_along_axis(y, q_desc[:, None], axis=1)[:, 0]
             k, sigma = _gpdfit_from_y(y, nf, y_quart, y[:, 0], product=product)
             # reference _gpinv (psis.py:211-231): probs strictly inside (0,1).
-            # sigma/k enter as ONE per-row reciprocal-style factor instead of
-            # an (B, M) elementwise f64 divide — emulated f64 division is a
-            # multi-op Newton sequence per element, and the single extra
-            # rounding (x*(sigma/k) vs sigma*(x/k)) is ~1 ulp, far inside
-            # the 1e-12 parity budget.
+            # sigma/k enter as ONE per-row factor instead of an (B, M)
+            # elementwise f64 divide; the single extra rounding
+            # (x*(sigma/k) vs sigma*(x/k)) is ~1 ulp, far inside the 1e-12
+            # parity budget.
             sig_over_k = sigma / jnp.where(k == 0, 1.0, k)
             q_lin = jnp.where(
                 jnp.abs(k)[:, None] < eps,
@@ -192,13 +187,11 @@ def _psis_tail_scores(
             smoothed = jnp.minimum(jnp.log(q_lin + expxcutoff[:, None]), 0.0)
             return k, smoothed, sigma > 0
 
-        # Deep-tail guard (hardware finding, round 4): when the quartile
-        # exceedance sits below e^-60, the linear pipeline degenerates —
-        # exp underflow poisons the fit on TPU's float32-exponent-range f64
-        # emulation (k = NaN on a v5e for rows whose tail lies >~90 nats
-        # below the row max) and overflows even full-range IEEE f64 beyond
+        # Deep-tail guard: when the quartile exceedance sits below e^-60,
+        # the linear pipeline loses the fit to exp underflow on an f64 with
+        # float32's exponent range, and IEEE f64 itself overflows beyond
         # ~705 nats.  One gather + one log1mexp per ROW decides the branch;
-        # ordinary batches run the linear pipeline bit-for-bit as before.
+        # ordinary batches run the linear pipeline bit-for-bit.
         q_tail = jnp.take_along_axis(tail_vals, q_desc[:, None], axis=1)[:, 0]
         log_quart_row = q_tail + _log1mexp(jnp.minimum(xcutoff - q_tail, 0.0))
         in_range = jnp.where(
@@ -274,13 +267,8 @@ def loo_scores_psis(log_lik, tail_max: int):
     M = tail_max
     cutoff_floor = jnp.asarray(_CUTOFF_FLOOR, dtype)
 
-    # Selection stays in native float64: sorting is COMPARISON-only, and
-    # comparisons cost the same under TPU's emulated f64 as in f32 — only
-    # arithmetic pays the emulation tax.  Measured on v5e at 62.5k x 4000:
-    # f64 segmented cascade 99 ms vs f64 lax.top_k 221-339 ms vs the
-    # f32-proxy hybrid (topk_hybrid_f64) 822 ms — the proxy machinery LOSES
-    # on real hardware, so it is kept only as a library utility.
-    #
+    # Selection stays in float64 (the f32-proxy ``topk_hybrid_f64`` adds a
+    # gather and a certificate pass and is kept only as a library utility).
     # It runs on the UNSHIFTED rows (comparisons are shift-invariant) so the
     # (B, S) f64 subtraction never materializes: the max-shift is applied to
     # the compact (B, M+1) winners — per-element the identical ``x - C1``
@@ -317,6 +305,26 @@ def loo_scores_psis(log_lik, tail_max: int):
     return elpd_i, khat, lppd_i
 
 
+def _fast_prepass(log_lik, k: int):
+    """Selection and full-row reductions of the float32 fast path.
+
+    Returns ``(vals, C1, xcutoff, log_ntl, lppd_i)``: the descending top-``k``
+    of the max-shifted ``x = -log_lik - C1``, the row max ``C1`` of
+    ``-log_lik``, the tail cutoff ``max(vals[:, k-1], log(float64 tiny))``,
+    the non-tail mass ``log sum_{x <= xcutoff} exp(x)`` and the in-sample
+    lppd, all ``(B,)`` except ``vals``.
+    """
+    x_raw = -log_lik
+    S = x_raw.shape[1]
+    C1 = jnp.max(x_raw, axis=1)
+    x = x_raw - C1[:, None]
+    vals = topk_vals_desc(x, k)  # descending (B, k), exact
+    xcutoff = jnp.maximum(vals[:, k - 1], jnp.asarray(_CUTOFF_FLOOR, x.dtype))
+    log_ntl = _nontail_mass(x, xcutoff)
+    lppd_i = logsumexp(log_lik, axis=1, b_inv=S)
+    return vals, C1, xcutoff, log_ntl, lppd_i
+
+
 @partial(jax.jit, static_argnames=("tail_max",))
 def loo_scores_psis_fast(log_lik, tail_max: int):
     """Scatter-free PSIS-LOO scores over compact top-k arrays (fast path).
@@ -327,79 +335,16 @@ def loo_scores_psis_fast(log_lik, tail_max: int):
     float64 path — would NaN-poison those rows instead; the flag lets
     callers surface the divergence).
 
-    Tail selection is the fused Pallas prepass (one VMEM visit computes the
-    sorted tail AND every full-row reduction) where supported, else the
-    exact segmented ``approx_max_k`` cascade; intended for the float32
-    throughput path.
+    Tail selection is the exact segmented ``approx_max_k`` cascade
+    (:func:`~pyloo_tpu.ops.selection.topk_vals_desc`); intended for the
+    float32 throughput path.
     """
-    x_raw = -log_lik
-    B, S = x_raw.shape
-    dtype = x_raw.dtype
     M = tail_max
-    cutoff_floor = jnp.asarray(_CUTOFF_FLOOR, dtype)
-
-    from .selection import fast_path_route
-
-    route = fast_path_route(B, S, M + 1, dtype)
-    use_fused = route != "cascade"
-    if route == "pallas":
-        from .pallas_topk import pallas_loo_prepass
-
-        vals, C1, log_ntl, log_sum_ll = pallas_loo_prepass(x_raw, M + 1)
-    elif route == "pallas-multipass":
-        from .pallas_topk import multipass_parts, pallas_loo_prepass_multi
-
-        vals, C1, log_ntl, log_sum_ll = pallas_loo_prepass_multi(
-            x_raw, M + 1, parts=multipass_parts(S, M + 1)
-        )
-    else:
-        C1 = jnp.max(x_raw, axis=1)
-        x = x_raw - C1[:, None]
-        vals = topk_vals_desc(x, M + 1)  # descending (B, M+1), exact
-
-    xcutoff = jnp.maximum(vals[:, M], cutoff_floor)
-    if not use_fused:
-        log_ntl = _nontail_mass(x, xcutoff)
-
+    vals, C1, xcutoff, log_ntl, lppd_i = _fast_prepass(log_lik, M + 1)
     elpd_i, khat, degenerate = _psis_tail_scores(
-        vals[:, :M], xcutoff, log_ntl, C1, S, exact=False, product=True
+        vals[:, :M], xcutoff, log_ntl, C1, log_lik.shape[1], exact=False,
+        product=True,
     )
-
-    if use_fused:
-        lppd_i = log_sum_ll - jnp.log(jnp.asarray(S, dtype))
-    else:
-        lppd_i = logsumexp(log_lik, axis=1, b_inv=S)
-    return elpd_i, khat, lppd_i, degenerate
-
-
-@partial(
-    jax.jit, static_argnames=("b_in", "s", "tail_max", "interpret")
-)
-def loo_scores_psis_fast_tiled(
-    xt, *, b_in: int, s: int, tail_max: int, interpret: bool = False
-):
-    """:func:`loo_scores_psis_fast` over a pre-tiled prepass input.
-
-    ``xt`` is ``tile_rows(-log_lik, tail_max + 1)`` (see
-    :func:`pyloo_tpu.ops.pallas_topk.tile_rows`); producing the tiles inside
-    the chunk-generator program fuses the layout change into the generator's
-    output write, removing one full HBM round-trip per chunk from the
-    streaming path.  Same outputs and semantics as the fused branch of
-    :func:`loo_scores_psis_fast`.
-    """
-    from .pallas_topk import pallas_loo_prepass_tiled
-
-    M = tail_max
-    dtype = xt.dtype
-    cutoff_floor = jnp.asarray(_CUTOFF_FLOOR, dtype)
-    vals, C1, log_ntl, log_sum_ll = pallas_loo_prepass_tiled(
-        xt, b_in, s, M + 1, interpret=interpret
-    )
-    xcutoff = jnp.maximum(vals[:, M], cutoff_floor)
-    elpd_i, khat, degenerate = _psis_tail_scores(
-        vals[:, :M], xcutoff, log_ntl, C1, s, exact=False, product=True
-    )
-    lppd_i = log_sum_ll - jnp.log(jnp.asarray(s, dtype))
     return elpd_i, khat, lppd_i, degenerate
 
 

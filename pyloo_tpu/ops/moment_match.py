@@ -1,6 +1,6 @@
 """Device-resident batched moment matching for the wrapper path.
 
-TPU-first realization of SURVEY §7 Phase 5 (reference greedy loop:
+Device-batched realization of SURVEY §7 Phase 5 (reference greedy loop:
 ``pyloo/loo_moment_match.py:384-561``): instead of a host loop that pays a
 device round-trip per transform per observation, ALL bad observations run
 simultaneously as one jitted program — the affine transforms are
@@ -35,6 +35,10 @@ import jax.numpy as jnp
 
 from .psis import psislw_batch
 
+# float32 products on the GPU run in TF32 unless asked otherwise; these are
+# statistical quantities, so every product keeps full precision
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = [
     "batched_moment_match",
     "split_transform_halves",
@@ -51,7 +55,7 @@ def split_transform_halves(upars, shift, scaling, mapping, mapping_inv, *, use_c
 
     The accumulated affine map is ``u -> (u - m) * scaling @ mapping.T + m +
     shift`` with ``m`` the draw mean; its inverse uses ``mapping_inv``
-    (computed host-side: a tiny P x P inverse, avoiding LU on TPU).
+    (computed host-side: a tiny P x P inverse).
 
     Returns ``(half_fwd, half_inv)``: each is ``upars`` with one half
     replaced by the transformed draws.
@@ -62,11 +66,11 @@ def split_transform_halves(upars, shift, scaling, mapping, mapping_inv, *, use_c
     centered = upars - mean[None, :]
     fwd = centered * scaling[None, :]
     if use_cov:
-        fwd = fwd @ mapping.T
+        fwd = jnp.matmul(fwd, mapping.T, precision=_HIGHEST)
     fwd = fwd + (shift + mean)[None, :]
     inv = centered
     if use_cov:
-        inv = inv @ mapping_inv.T
+        inv = jnp.matmul(inv, mapping_inv.T, precision=_HIGHEST)
     inv = inv / scaling[None, :] + (mean - shift)[None, :]
     row = jnp.arange(S)[:, None]
     half_fwd = jnp.where(row < half, fwd, upars)
@@ -96,7 +100,7 @@ def _plain_cov(x):
     """np.cov(x, rowvar=False) with default ddof=1."""
     S = x.shape[0]
     xm = x - jnp.mean(x, axis=0)
-    return xm.T @ xm / (S - 1)
+    return jnp.matmul(xm.T, xm, precision=_HIGHEST) / (S - 1)
 
 
 def _weighted_cov(x, w):
@@ -105,7 +109,9 @@ def _weighted_cov(x, w):
     v2 = jnp.sum(w * w)
     mu = jnp.sum(w[:, None] * x, axis=0) / v1
     xm = x - mu
-    return (w[:, None] * xm).T @ xm / (v1 - v2 / v1)
+    return jnp.matmul((w[:, None] * xm).T, xm, precision=_HIGHEST) / (
+        v1 - v2 / v1
+    )
 
 
 def _transform(uparsi, lwi, kind: int):
@@ -142,11 +148,8 @@ def _transform(uparsi, lwi, kind: int):
     wcovv = _weighted_cov(uparsi, w)
     chol1 = jnp.linalg.cholesky(wcovv)
     chol2 = jnp.linalg.cholesky(covv)
-    # chol1 @ chol2^{-1} via a triangular solve: jnp.linalg.inv lowers to
-    # LuDecomposition, which XLA:TPU does not implement for (emulated) f64
-    # (hardware finding, round 4: the device-batched moment-match program
-    # failed to compile on a v5e); triangular_solve lowers fine and is the
-    # numerically tighter form anyway.
+    # chol1 @ chol2^{-1} via a triangular solve: no explicit inverse, the
+    # numerically tighter form.
     mapping = jax.lax.linalg.triangular_solve(
         chol2, chol1, left_side=False, lower=True
     )
@@ -154,7 +157,12 @@ def _transform(uparsi, lwi, kind: int):
     # jnp returns NaNs instead, detected here
     ok = jnp.all(jnp.isfinite(mapping))
     mapping = jnp.where(ok, mapping, eye)
-    new = (uparsi - mean_original[None, :]) @ mapping.T + mean_weighted[None, :]
+    new = (
+        jnp.matmul(
+            uparsi - mean_original[None, :], mapping.T, precision=_HIGHEST
+        )
+        + mean_weighted[None, :]
+    )
     return new, shift, ones, mapping
 
 
@@ -262,7 +270,10 @@ def batched_moment_match(
                     st["total_scaling"] * scaling, st["total_scaling"]
                 ),
                 total_mapping=upd(
-                    mapping @ st["total_mapping"], st["total_mapping"]
+                    jnp.matmul(
+                        mapping, st["total_mapping"], precision=_HIGHEST
+                    ),
+                    st["total_mapping"],
                 ),
                 iterind=st["iterind"] + accept.astype(jnp.int32),
                 progressing=st["progressing"] | accept,

@@ -1,6 +1,6 @@
 """Conditional log-likelihood kernels for non-factorized MVN / MVT models.
 
-TPU-first replacement for the reference per-draw Python loop
+Batched replacement for the reference per-draw Python loop
 (``pyloo/loo_nonfactor.py:466-557``): draws are a vmapped batch axis, and the
 Student-t quadratic form uses the rank-1 identity
 
@@ -31,6 +31,10 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.special import gammaln
 
+# float32 products on the GPU run in TF32 unless asked otherwise; these are
+# statistical quantities, so every product keeps full precision
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["mvn_conditional_loglik", "mvt_conditional_loglik"]
 
 
@@ -38,9 +42,9 @@ def _precision_terms(y, mu, cov=None, prec=None):
     """r, g = P r, diag(P), and r^T P r per draw; NaN marks singular draws."""
     r = y[None, :] - mu  # (S, N)
     if prec is not None:
-        g = jnp.einsum("sij,sj->si", prec, r)
+        g = jnp.einsum("sij,sj->si", prec, r, precision=_HIGHEST)
         cbar = jnp.diagonal(prec, axis1=1, axis2=2)  # (S, N)
-        quad = jnp.einsum("si,si->s", r, g)
+        quad = jnp.einsum("si,si->s", r, g, precision=_HIGHEST)
         return r, g, cbar, quad
     S, N = r.shape
     chol = jnp.linalg.cholesky(cov)  # (S, N, N); NaN rows when not PD
@@ -48,10 +52,14 @@ def _precision_terms(y, mu, cov=None, prec=None):
     linv = jax.lax.linalg.triangular_solve(
         chol, eye, left_side=True, lower=True
     )  # L^{-1}
-    lr = jnp.einsum("sij,sj->si", linv, r)  # L^{-1} r
-    g = jnp.einsum("ski,sk->si", linv, lr)  # L^{-T} L^{-1} r = P r
-    cbar = jnp.einsum("ski,ski->si", linv, linv)  # diag(P)
-    quad = jnp.einsum("si,si->s", lr, lr)  # ||L^{-1} r||^2 = r^T P r
+    lr = jnp.einsum("sij,sj->si", linv, r, precision=_HIGHEST)  # L^{-1} r
+    # L^{-T} L^{-1} r = P r
+    g = jnp.einsum("ski,sk->si", linv, lr, precision=_HIGHEST)
+    cbar = jnp.einsum(
+        "ski,ski->si", linv, linv, precision=_HIGHEST
+    )  # diag(P)
+    # ||L^{-1} r||^2 = r^T P r
+    quad = jnp.einsum("si,si->s", lr, lr, precision=_HIGHEST)
     return r, g, cbar, quad
 
 

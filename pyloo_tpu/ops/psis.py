@@ -1,6 +1,6 @@
 """Vectorized Pareto-smoothed / truncated / standard importance sampling kernels.
 
-TPU-first redesign of the reference per-observation kernels
+Batched redesign of the reference per-observation kernels
 (``pyloo/psis.py:114-231``, ``pyloo/sis.py:86-106``, ``pyloo/tis.py:91-120``):
 
 * The reference runs a Python loop over observations, each doing a full
@@ -12,10 +12,10 @@ TPU-first redesign of the reference per-observation kernels
   *static* compile-time constant (reference ``pyloo/psis.py:89``).
 * The variable-length tail (strict ``x > xcutoff`` with ties, reference
   ``pyloo/psis.py:139``) is handled with masks over a fixed ``M``-slot buffer,
-  never with dynamic shapes, so XLA fuses everything onto the VPU.
+  never with dynamic shapes, so XLA fuses the elementwise work.
 * The Zhang-Stephens empirical-Bayes GPD fit (reference ``pyloo/psis.py:163-208``)
   is vectorized across rows; the candidate-``b`` grid is scanned with
-  ``lax.scan`` to bound peak VMEM/HBM at ``O(n_obs · M)`` per step.
+  ``lax.scan`` to bound peak device memory at ``O(n_obs · M)`` per step.
 
 All math follows Vehtari, Simpson, Gelman, Yao, Gabry (2024), "Pareto smoothed
 importance sampling", JMLR 25(72), and Zhang & Stephens (2009).
@@ -104,12 +104,11 @@ def _log1p_negby(sign_b, log_by):
 def _gpdfit_batch(log_ary, n, log_quart=None, log_last=None):
     """Zhang-Stephens empirical-Bayes GPD fit, vectorized over rows.
 
-    TPU-hardened formulation: exceedances enter as *logarithms* and every
+    Range-safe formulation: exceedances enter as *logarithms* and every
     intermediate (the candidate-``b`` grid, the posterior-mean ``b``, the
     scale) is carried in signed-log form.  The direct formulation overflows
-    on TPU where float64 is emulated with float32 exponent range (values
-    beyond ~1e±38 flush); exceedance dynamic ranges of e^±100 are routine for
-    heavy-tailed weights.  Algebraically identical to the reference fit
+    float32's exponent range (values beyond ~1e±38 flush); exceedance
+    dynamic ranges of e^±100 are routine for heavy-tailed weights.  Algebraically identical to the reference fit
     (``pyloo/psis.py:163-208``): same grid, same profile likelihood, same
     posterior-mean b, same k shrinkage.
 
@@ -123,8 +122,8 @@ def _gpdfit_batch(log_ary, n, log_quart=None, log_last=None):
     log_quart, log_last : (B,) arrays, optional
         Log of the first-quartile and maximum exceedance order statistics.
         When omitted, ``log_ary`` must be ascending left-aligned and they are
-        gathered from it (gathers are slow on TPU — callers on the hot path
-        should pass them).
+        gathered from it (callers on the hot path pass them and skip the
+        gathers).
 
     Returns
     -------
@@ -293,19 +292,19 @@ def _linear_candidate_grid(log_ary, n, log_quart, log_last):
     return y, nf, b, grid_valid
 
 
-# Renormalized-product profile scan.  On TPU float64 is emulated: a
-# transcendental costs tens of f32 ops, a multiply ~8, a compare/select ~1.
-# The profile log-likelihood sum_j log1p(-b*y_j) therefore collapses to ONE
-# float64 ``log`` per row per candidate by taking the log of the PRODUCT of
-# the (strictly positive) factors 1 - b*y_j, accumulated as a pairwise tree
-# whose partials are kept inside [2^-30, 2^30] by exact power-of-two
-# rescaling with an integer shift count — safe even under the emulation's
-# float32 exponent range.
+# Renormalized-product profile scan.  The profile log-likelihood
+# sum_j log1p(-b*y_j) collapses to ONE float64 ``log`` per row per candidate
+# by taking the log of the PRODUCT of the (strictly positive) factors
+# 1 - b*y_j, accumulated as a pairwise tree whose partials are kept inside
+# [2^-30, 2^30] by exact power-of-two rescaling with an integer shift count,
+# so it stays in range even for a float64 with float32's exponent range.
+# Written for hardware where a float64 transcendental costs far more than a
+# multiply; whether it still pays on native IEEE float64 is open.
 _RENORM_HI = 2.0**30
 _RENORM_LO = 2.0**-30
 # exact powers of two: rescaling multiplies are exact.  Both directions are
-# MULTIPLIES — emulated f64 division is a multi-op Newton sequence, and the
-# ``where`` evaluates both branches for every element.
+# MULTIPLIES (no division), and the ``where`` evaluates both branches for
+# every element.
 _RENORM_SCALE = 2.0**60
 _RENORM_INV = 2.0**-60
 _LOG_RENORM_SCALE = 60.0 * math.log(2.0)
@@ -383,9 +382,7 @@ def _linear_b_post(y, nf, b, valid, product=False):
 
     ``product=True`` evaluates each candidate's profile log-likelihood as
     the log of a renormalized product (:func:`_log_prod_terms`): one f64
-    transcendental per row per candidate instead of M, which is the
-    difference between ~250 ms and ~20 ms per 62.5k x 4000 chunk on a v5e
-    where f64 transcendentals are emulated.
+    transcendental per row per candidate instead of M.
     """
     dtype = y.dtype
     eps = jnp.finfo(dtype).eps
@@ -436,14 +433,13 @@ def _linear_fit_close(y, nf, b_post, product=False):
 # Deep-tail guard for the linear f64 fit.  With max-shifted exceedances
 # (log_ary <= 0, so y_max <= 1) the linear pipeline's extreme magnitudes are
 # bounded by the QUARTILE anchor alone: y_quart underflows for
-# log_quart < ~-87 under TPU's float32-exponent-range f64 emulation (b grid
+# log_quart < ~-87 on a float64 with float32's exponent range (b grid
 # -> inf -> NaN k), and the candidate products reach ~40 * y_max/y_quart,
 # which overflows the same range for log_quart < ~-84 (and full-range IEEE
 # f64 for log_quart < ~-705 — the linear fit NaNs on CPU too, measured).
-# -60 leaves a wide margin on the emulated range; batches beyond it take
+# -60 leaves a wide margin on the narrow range; batches beyond it take
 # the signed-log fit, which is domain-unbounded and agrees with the linear
-# fit to ~1e-14 where both are defined (hardware finding, round 4: rows
-# whose tail sits >~90 nats below the row max returned k = NaN on a v5e).
+# fit to ~1e-14 where both are defined.
 _LINEAR_FIT_MIN_LOG_QUART = -60.0
 
 
@@ -452,8 +448,8 @@ def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None, product=Fals
 
     Requires ``log_ary <= 0``: exceedances of max-shifted log weights are
     always <= 1 (reference ``psis.py:125-141`` operates on exactly such
-    values), so ``exp`` cannot overflow even under TPU's
-    float32-exponent-range float64 emulation — the signed-log machinery of
+    values), so ``exp`` cannot overflow even with float32's exponent
+    range — the signed-log machinery of
     :func:`_gpdfit_batch` exists for float32 and for unbounded general
     inputs, and costs ~3-4 transcendentals per grid element where this
     costs one ``log1p``.  Formula-for-formula the reference fit
@@ -468,8 +464,8 @@ def _gpdfit_batch_linear(log_ary, n, log_quart=None, log_last=None, product=Fals
     Same signature/returns as :func:`_gpdfit_batch`; ``product=True`` opts
     the profile-likelihood scans (grid AND closing pass) into the
     renormalized-product evaluation (:func:`_log_prod_terms`) — uniformly
-    accurate (error ~M*eps absolute, no cancellation), vmap-safe, and ~10x
-    cheaper on TPU's emulated f64.
+    accurate (error ~M*eps absolute, no cancellation), vmap-safe, and one
+    transcendental per candidate instead of M.
     """
     B, M = log_ary.shape
     if log_quart is None:
@@ -532,27 +528,22 @@ def _gpdfit_from_y(y, nf, y_quart, y_last, product=False):
 # both: one transcendental per candidate, no guard, no cond.
 
 
-# NOTE — rejected design (round 3, measured on v5e): a float32 rescaled-
-# linear product-tree fit (exceedances divided by the row max so the whole
-# Zhang-Stephens scan runs in f32 linear arithmetic via _log_prod_terms,
-# with a lax.cond fallback to the signed-log scan for quartile-to-max spans
-# beyond e^60).  Numerically it matched the signed-log fit to ~5e-3 on k,
-# but it MEASURED SLOWER: 77 ms vs 49 ms per (125k, 191) batch.  The
-# product tree wins only under emulated f64, where each transcendental
-# costs tens of f32 ops; native f32 exp/log are single VPU ops on TPU, so
-# the tree's renormalization ladder (~6 where-selects per leaf) costs more
-# than the ~4 transcendentals per element it removes.  Keep float32 on the
-# signed-log scan.
+# NOTE — rejected design: a float32 rescaled-linear product-tree fit
+# (exceedances divided by the row max so the whole Zhang-Stephens scan runs
+# in f32 linear arithmetic via _log_prod_terms, with a lax.cond fallback to
+# the signed-log scan for quartile-to-max spans beyond e^60).  It matched
+# the signed-log fit only to ~5e-3 on k, and where float32 transcendentals
+# are cheap the tree's renormalization ladder (~6 where-selects per leaf)
+# costs more than the ~4 transcendentals per element it removes.  Keep
+# float32 on the signed-log scan.
 
 
 def _gpdfit_dispatch(log_exceed, n_tail, log_quart, log_last, product=False):
     """Pick the fit for max-shifted PSIS exceedances (log values <= 0).
 
-    float64 -> the reference-verbatim linear fit (cheap even under TPU's
-    emulated f64, where every transcendental costs multiple f32 ops);
-    float32 -> the signed-log fit (robust to exp underflow below ~e^-88,
-    and faster than the product tree where transcendentals are native —
-    see the rejected-design note above).  ``product`` only affects the
+    float64 -> the reference-verbatim linear fit (one transcendental per
+    element); float32 -> the signed-log fit (robust to exp underflow below
+    ~e^-88 — see the rejected-design note above).  ``product`` only affects the
     float64 fit's profile-likelihood evaluation.
     """
     if log_exceed.dtype == jnp.dtype(jnp.float64):
@@ -650,9 +641,8 @@ def _smoothed_tail_desc(tail_vals, xcutoff, tail_max: int):
     # already provides): log(exp(x) - exp(xcutoff)) = x + log1mexp(xcutoff-x).
     # The GPD fit only needs masked sums plus two single-element order
     # statistics, and the ascending plotting position of descending slot d is
-    # (n - d - 0.5)/n, so no (B, M) gathers are needed (they cost more than
-    # the entire fit on TPU).  The log-domain form survives TPU's float32
-    # exponent range.
+    # (n - d - 0.5)/n, so no (B, M) gathers are needed.  The log-domain form
+    # survives float32's exponent range.
     slot = jnp.arange(tail_max, dtype=jnp.int32)
     slot_valid = slot[None, :] < n_tail[:, None]
     gap = jnp.minimum(xcutoff[:, None] - tail_vals, 0.0)  # <= 0 for valid slots

@@ -1,19 +1,16 @@
-"""Exact top-k row selection tuned for TPU.
+"""Exact top-k row selection.
 
-``jax.lax.top_k`` and single-stage ``approx_max_k`` both lower to a bitonic
-partial sort over the FULL row width; on TPU that sort — not the HBM
-streaming — dominates (measured ~135 ms on-chip for (125k, 4000)->191
-against a ~2.4 ms single-pass floor on v5e).  Bitonic cost per element grows
-with the sorted width, so an exact segmented cascade is faster:
+``jax.lax.top_k`` and single-stage ``approx_max_k`` select over the FULL row
+width.  When the backend lowers top-k to a sort whose cost per element grows
+with the sorted width, an exact segmented cascade does less work:
 
   stage 1: top-k within each of G segments of width S/G
   stage 2: top-k of the concatenated G*k per-segment winners
 
 Exactness: every global top-k element is a top-k element of its own segment,
 so the union of per-segment winners is a superset of the global top-k.
-Measured on a v5e chip at (125k, 4000)->191: 170 ms single-stage vs 115 ms
-for the G=4 cascade (identical outputs); G=2/G=8/3-stage variants all
-slower (145/137/123+ ms).
+``approx_max_k`` runs with ``recall_target=1.0``, so each stage is exact on
+every backend, whether or not it has an approximate lowering.
 
 Values-only: the cascade does not track original column indices (stage-2
 indices point into the stage-1 winner array), which is exactly what the
@@ -28,89 +25,20 @@ import jax.numpy as jnp
 
 __all__ = ["topk_vals_desc", "topk_with_idx", "topk_hybrid_f64"]
 
-# Segment width for the first cascade stage.  1000 was the measured optimum
-# at S=4000, k=191; rows narrower than _MIN_CASCADE_WIDTH or k too close to
-# the segment width fall back to single-stage selection.
+# Segment width for the first cascade stage: four segments at the default
+# S=4000 draws; rows narrower than _MIN_CASCADE_WIDTH or k too close to the
+# segment width fall back to single-stage selection.
 _SEGMENT_WIDTH = 1000
 _MIN_CASCADE_WIDTH = 2000
-
-# Use the Pallas bitonic kernel (ops/pallas_topk.py) on real TPUs where it
-# applies; the approx_max_k cascade remains the portable path (CPU tests,
-# unsupported shapes, float64).  The row gate only bounds padding waste —
-# one grid step covers up to 128 rows, so anything smaller gains nothing
-# from the kernel but loses nothing either.
-_PALLAS_MIN_ROWS = 128
-
-
-def _pallas_applicable(x, k: int) -> bool:
-    if jax.default_backend() != "tpu" or x.dtype != jnp.float32:
-        return False
-    if x.ndim != 2 or x.shape[0] < _PALLAS_MIN_ROWS:
-        return False
-    from .pallas_topk import supports
-
-    return supports(x.shape[-1], k)
-
-
-# NOTE — rejected design (round 5): a Pallas lexicographic PAIR sort for
-# float64 selection (hi = f32(x), lo = f32(x - hi), compare hi then lo).
-# The kernel was built and interpret-verified, but the split is NOT exact:
-# two f32 planes carry ~48 mantissa bits against float64's 53, so
-# ``hi + lo`` reconstructs x only to ~2^-49 relative and sub-2^-48
-# near-ties sort by the rounded value — the "exact" path would no longer
-# be exact by construction.  An exact THREE-plane split (hi/mid/lo — the
-# second residual is exactly representable in 29 bits, so 24+24+29 covers
-# 53) costs ~3.4-4x the f32 sort's vector ops per compare-exchange, which
-# lands at or above the approx_max_k cascade's measured 104 ms at
-# (62.5k, 4000)->191 — no win, plus a mandatory split pass.  Variants that
-# compare fewer planes and repair afterwards all reintroduce either a
-# per-row gather (measured 8x slower than the cascade in round 3's hybrid
-# episode, see ``topk_hybrid_f64``) or a full-row tie-census pass.  The
-# cascade stays.
-
-
-def fast_path_route(b: int, s: int, k: int, dtype) -> str:
-    """Which selection path ``loo_scores_psis_fast`` takes for (B, S, k).
-
-    One source of truth for the kernel dispatch AND for benchmark/diagnostic
-    reporting, so no regime is a silent fallback:
-
-    * ``"pallas"`` — one fused prepass pass (TPU, float32, B >= 128,
-      ``supports(S, k)``: k <= 1024, S <= 64 * list_height);
-    * ``"pallas-multipass"`` — draw-axis split into <= 16 supported parts
-      with an exact XLA-side merge (S beyond one pass's segment cap);
-    * ``"cascade"`` — the exact segmented ``approx_max_k`` cascade
-      (portable path: CPU, float64, k > 1024, or B < 128 where one grid
-      step would be mostly padding).
-    """
-    if (
-        jax.default_backend() != "tpu"
-        or jnp.dtype(dtype) != jnp.float32
-        or b < _PALLAS_MIN_ROWS
-    ):
-        return "cascade"
-    from .pallas_topk import multipass_parts, supports
-
-    if supports(s, k):
-        return "pallas"
-    parts = multipass_parts(s, k)
-    if parts is not None and parts > 1:
-        return "pallas-multipass"
-    return "cascade"
 
 
 def topk_vals_desc(x, k: int):
     """Exact top-k values of each row of ``x``, descending.  (B, S) -> (B, k).
 
-    Equivalent to ``jax.lax.top_k(x, k)[0]``; dispatches to the Pallas
-    bitonic sort-and-merge kernel on TPU (float32, supported shapes) and to
-    the segmented ``approx_max_k`` cascade elsewhere.
+    Equivalent to ``jax.lax.top_k(x, k)[0]``, computed by the segmented
+    ``approx_max_k`` cascade on rows wide enough for it to shrink the width.
     """
     s = x.shape[-1]
-    if _pallas_applicable(x, k):
-        from .pallas_topk import pallas_topk_desc
-
-        return pallas_topk_desc(x, k, variant="roll")
     if k == s:
         return jnp.sort(x, axis=-1, descending=True)
     # the segment must hold at least 2k so stage 1 shrinks the width; for
@@ -179,13 +107,11 @@ _HYBRID_PAD = 64
 def topk_hybrid_f64(xs, k: int):
     """Exact descending top-k of float64 rows at float32 selection speed.
 
-    TPU's float64 is software-emulated, so a full-width f64 ``top_k``
-    dominates the exact PSIS path.  Selection however only needs the
-    *order*, and float32 rounding is monotone: selecting ``k + PAD``
-    candidates on the f32 proxy, gathering their true f64 values, and
-    re-selecting top-k among the narrow candidates gives bit-identical
-    values whenever the proxy tie class at the selection boundary either
-    fits in the padding or is f64-constant.
+    Selection only needs the *order*, and float32 rounding is monotone:
+    selecting ``k + PAD`` candidates on the f32 proxy, gathering their true
+    f64 values, and re-selecting top-k among the narrow candidates gives
+    bit-identical values whenever the proxy tie class at the selection
+    boundary either fits in the padding or is f64-constant.
 
     Returns ``(vals, ok)``: ``vals`` is ``(B, k)`` f64 descending; ``ok``
     is ``(B,)`` bool, True where the selection is PROVABLY exact.  Rows

@@ -19,6 +19,10 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+# float32 products on the GPU run in TF32 unless asked otherwise; these are
+# statistical quantities, so every product keeps full precision
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["stacking_weights_em"]
 
 
@@ -28,7 +32,7 @@ def _em_solve(exp_elpds, max_iters: int, tol: float):
 
     def body(state):
         w, _, it = state
-        denom = exp_elpds @ w  # (N,)
+        denom = jnp.dot(exp_elpds, w, precision=_HIGHEST)  # (N,)
         resp = exp_elpds * (w[None, :] / denom[:, None])  # responsibilities
         w_new = jnp.mean(resp, axis=0)
         w_new = w_new / jnp.sum(w_new)

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..rcparams import rcParams
+
 __all__ = ["obs_mesh", "obs_sharding", "replicated_sharding", "apply_rowwise"]
 
 # Row budget per kernel invocation when falling back to host-side chunking on
@@ -56,9 +58,11 @@ def apply_rowwise(
 ):
     """Run a jitted row-parallel kernel over a (B, S) array at any scale.
 
-    * multi-device: pad B to a multiple of the mesh size, place the input with
-      ``P("obs", None)`` and make one sharded call — XLA keeps every reduction
-      local to a row, so no collectives are emitted at all;
+    * multi-device (an explicit ``mesh``, or every visible device when
+      ``rcParams["device.auto_shard"]`` is on): pad B to a multiple of the
+      mesh size, place the input with ``P("obs", None)`` and make one
+      sharded call — XLA keeps every reduction local to a row, so no
+      collectives are emitted at all;
     * single device: chunk the batch on host to bound peak HBM, letting
       successive dispatches pipeline (the next chunk's transfer overlaps the
       current chunk's compute).
@@ -68,7 +72,8 @@ def apply_rowwise(
     """
     rows = jnp.asarray(rows)
     B, S = rows.shape
-    mesh = mesh if mesh is not None else obs_mesh()
+    if mesh is None and rcParams["device.auto_shard"]:
+        mesh = obs_mesh()
 
     if mesh is not None:
         n_dev = math.prod(mesh.devices.shape)

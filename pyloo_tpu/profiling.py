@@ -1,7 +1,7 @@
 """Profiling and throughput instrumentation.
 
 The reference has no tracing/profiling subsystem (SURVEY.md §5); this module
-is the TPU-native equivalent: ``trace`` wraps ``jax.profiler`` for
+is the accelerator-native equivalent: ``trace`` wraps ``jax.profiler`` for
 TensorBoard-viewable device traces, and ``Throughput`` measures synchronized
 wall-clock rates (observations/sec) around device work.
 """

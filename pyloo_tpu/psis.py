@@ -1,7 +1,7 @@
 """Pareto smoothed importance sampling — public API.
 
 Equivalent of reference ``pyloo/psis.py:25-111`` (``psislw``) over the batched
-TPU kernel in :mod:`pyloo_tpu.ops.psis`.
+device kernel in :mod:`pyloo_tpu.ops.psis`.
 """
 
 from __future__ import annotations

@@ -84,8 +84,7 @@ def loo_moment_match_split(
     total_scaling = _initialize_array(total_scaling, np.ones, dim)
     total_mapping = _initialize_array(total_mapping, np.eye, dim)
 
-    # the device program needs the inverse map; P x P is host-trivial and
-    # sidesteps TPU LU lowering (see ops/moment_match.py)
+    # the device program needs the inverse map; P x P is host-trivial
     mapping_inv = np.linalg.inv(total_mapping) if cov else np.eye(dim)
     half_fwd, half_inv = split_transform_halves(
         jnp.asarray(upars, jnp.float64),

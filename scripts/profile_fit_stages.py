@@ -1,6 +1,6 @@
 """Sub-stage breakdown of the exact-path fit + smoothing (62.5k x 191).
 
-Times, on the attached TPU, each piece of the linear-domain pipeline that
+Times, on the attached GPU, each piece of the linear-domain pipeline that
 ``_psis_tail_scores(exact=True, product=True)`` runs on the compact tail:
 
   * the exp that turns shifted tails into linear exceedances,

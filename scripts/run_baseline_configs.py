@@ -8,7 +8,8 @@ Configs (BASELINE.md §"Benchmark configs to track"):
    scripts/bench_subsample.py; here the wells posterior (3020 obs)
 5. loo_moment_match + loo_nonfactor
 
-Run:  python scripts/run_baseline_configs.py            (CPU by default)
+Run:  python scripts/run_baseline_configs.py            (CPU by default;
+      PYLOO_CONFIGS_ON_DEVICE=1 runs on JAX's default device)
 """
 
 import json
@@ -21,7 +22,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-if os.environ.get("PYLOO_CONFIGS_ON_TPU") != "1":
+if os.environ.get("PYLOO_CONFIGS_ON_DEVICE") != "1":
     jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 

@@ -374,7 +374,7 @@ class TestProductScanFit:
     conditioning of the Zhang-Stephens posterior mean), including on the
     degenerate and extreme-spread tails that broke the earlier pair-merged
     rewrite (the product of positive factors cannot cancel, and the
-    power-of-two renormalization keeps partials in range even under TPU's
+    power-of-two renormalization keeps partials in range even under a
     float32-exponent-range f64 emulation).
     """
 
@@ -516,10 +516,9 @@ class TestFastPathHeavyTails:
 
 class TestDeepTailFallback:
     """The f64 linear GPD fit must route deep/wide tails to the signed-log
-    fit (hardware finding, round 4): exceedances of rows whose tail sits
-    ~90+ nats below the row max underflow the linear pipeline under TPU's
-    float32-exponent-range f64 emulation (k came back NaN on a v5e), and
-    spreads beyond ~705 nats NaN even full-range IEEE f64 on CPU."""
+    fit: exceedances of rows whose tail sits ~90+ nats below the row max
+    underflow the linear pipeline on a float64 with float32's exponent
+    range, and spreads beyond ~705 nats NaN even full-range IEEE f64."""
 
     def test_psislw_deep_rows_match_oracle(self):
         import jax.numpy as jnp

@@ -300,7 +300,7 @@ class TestKfoldOnBridge:
 class TestVariationalOnBridge:
     """Laplace / ADVI run unchanged on a bridge-adapted PyMC model,
     completing the reference's Laplace-wrapper workflow (pyloo
-    wrapper/pymc/laplace.py:56-506) for live-PyMC users on TPU."""
+    wrapper/pymc/laplace.py:56-506) for live-PyMC users on the device."""
 
     def test_laplace_fit(self, bridge):
         model = from_bridge(bridge)

@@ -3,7 +3,7 @@
 These tests import the reference's pure-NumPy numerics from
 ``/root/reference/pyloo`` (via ``tests/refloader.py``, which stubs the
 missing xarray/arviz imports) and assert near-bitwise (<= 1e-12 relative)
-agreement with this package's TPU kernels in float64 on CPU.
+agreement with this package's device kernels in float64 on CPU.
 
 Covers: ``_psislw`` (smoothed log weights + khat), ``_gpdfit``, ``_gpinv``,
 ``_sislw``, ``_tislw`` (reference psis.py:114-231, sis.py:86-106,

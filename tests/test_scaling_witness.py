@@ -1,8 +1,8 @@
 """Machine-checked multi-chip scaling witness (pyloo_tpu.parallel.witness).
 
-The 8-chip extrapolation in MULTICHIP_r*.json used to rest on result parity
-plus an honesty note about single-core hosts.  These tests assert the
-scaling properties *statically* on the compiled, SPMD-partitioned HLO:
+Result parity across mesh sizes says nothing about how a sharded step
+scales.  These tests assert the scaling properties *statically* on the
+compiled, SPMD-partitioned HLO:
 
 (a) the ONLY cross-device ops in a sharded LOO step are scalar all-reduces
     (the final elpd/SE/p_loo/k reductions) — no all-gather, all-to-all,

@@ -1232,91 +1232,44 @@ class TestReviewFixes:
             assert_allclose(got[key], ref[key], rtol=1e-9, err_msg=key)
 
 
-class TestTiledGeneratorLayout:
-    """The tiled generator layout (``_tiled_prepass_k``): on a real TPU the
-    float32 PSIS generator emits the Pallas prepass tile layout so the
-    natural (chunk, S) matrix never round-trips HBM.  CPU suites force the
-    path with the kernel in interpret mode and pin it against the natural
-    layout end to end."""
+class TestFloat32StreamingParity:
+    """The float32 streaming path (chunked generator + fast PSIS kernel)
+    against in-memory ``pl.loo`` at float32 precision on the same rows:
+    same kernel, so per-row values agree to float32 rounding whatever the
+    chunking, ragged last chunk included."""
 
-    def _data(self, rng, b=200, s=600):
-        ll = rng.normal(-1.0, 0.9, size=(b, s))
-        return jnp.asarray(ll, jnp.float32), b, s
-
-    def test_forced_tiled_matches_natural(self, rng_module):
-        import pyloo_tpu.streaming as st
-
-        ll_dev, b, s = self._data(rng_module)
-        r_nat = pl.loo_streaming(
-            lambda i: ll_dev[i], b, s, chunk_size=128,
+    @pytest.mark.parametrize(
+        "b,s,chunk", [(200, 600, 128), (203, 4000, 64), (64, 2500, 64)]
+    )
+    def test_streaming_matches_in_memory(self, rng_module, b, s, chunk):
+        ll = rng_module.normal(-1.0, 0.9, size=(b, s))
+        ll[5] = -np.abs(rng_module.standard_t(2, size=s)) * 3  # heavy tail
+        ll32 = ll.astype(np.float32)
+        ll_dev = jnp.asarray(ll32)
+        res = pl.loo_streaming(
+            lambda i: ll_dev[i], b, s, chunk_size=chunk,
             dtype=jnp.float32, pointwise=True,
         )
-        st._TILED_FORCE_INTERPRET = True
+        saved = pl.rcParams["device.precision"]
+        pl.rcParams["device.precision"] = "float32"
         try:
-            st.clear_streaming_cache()
-            r_til = pl.loo_streaming(
-                lambda i: ll_dev[i], b, s, chunk_size=128,
-                dtype=jnp.float32, pointwise=True,
-            )
+            ref = _loo_reference(ll32.astype(np.float64), pointwise=True)
         finally:
-            st._TILED_FORCE_INTERPRET = False
-            st.clear_streaming_cache()
+            pl.rcParams["device.precision"] = saved
         assert_allclose(
-            float(r_til["elpd_loo"]), float(r_nat["elpd_loo"]), rtol=1e-6
+            np.asarray(res.loo_i.values),
+            np.asarray(ref.loo_i.values),
+            rtol=1e-6,
+            atol=1e-6,
         )
         assert_allclose(
-            np.asarray(r_til.loo_i.values),
-            np.asarray(r_nat.loo_i.values),
-            rtol=1e-5,
+            np.asarray(res.pareto_k.values),
+            np.asarray(ref.pareto_k.values),
+            rtol=0,
             atol=1e-5,
         )
-        assert_allclose(
-            np.asarray(r_til.pareto_k.values),
-            np.asarray(r_nat.pareto_k.values),
-            rtol=0,
-            atol=1e-4,
-        )
-
-    def test_tiled_gate_declines_unsupported_configs(self, rng_module):
-        """The gate keys off method/dtype/mesh/backend — every declining
-        configuration must return None (natural layout)."""
-        from pyloo_tpu.base import ISMethod
-        from pyloo_tpu.streaming import _tiled_prepass_k
-
-        fn = lambda i: i  # noqa: E731 - placeholder callable
-        common = dict(
-            mesh=None, mixture=False, column_gather=None,
-            chunk_size=1024, n_draws=600, tail_max=73,
-        )
-        assert (
-            _tiled_prepass_k(
-                fn, ISMethod.PSIS, jnp.float64, **common
-            )
-            is None
-        )
-        assert (
-            _tiled_prepass_k(fn, ISMethod.SIS, jnp.float32, **common)
-            is None
-        )
-        assert (
-            _tiled_prepass_k(
-                fn, ISMethod.PSIS, jnp.float32,
-                **dict(common, mixture=True),
-            )
-            is None
-        )
-        assert (
-            _tiled_prepass_k(
-                fn, ISMethod.PSIS, jnp.float32,
-                **dict(common, chunk_size=64),
-            )
-            is None
-        )
-        # on the CPU test backend the real-TPU gate declines too
-        assert (
-            _tiled_prepass_k(fn, ISMethod.PSIS, jnp.float32, **common)
-            is None
-        )
+        for key in ("elpd_loo", "p_loo", "se"):
+            assert_allclose(res[key], ref[key], rtol=1e-6, err_msg=key)
 
 
 class TestResolveChunk:
@@ -1352,9 +1305,10 @@ class TestResolveChunk:
 
 
 class TestGeneratorConstantHoisting:
-    """Round-5 cold-start guard: the chunk generator's HLO must NOT carry
-    closure-captured data arrays as literal constants (BENCH_r04's 63 s
-    first-call compile was a ~126 MB constant-baked module)."""
+    """Cold-start guard: the chunk generator's HLO must NOT carry
+    closure-captured data arrays as literal constants (a 1M x 32 design
+    matrix baked in makes a ~126 MB module that dominates first-call
+    compile)."""
 
     def _make_fn(self, n_obs, n_draws, n_feat=16):
         rng = np.random.default_rng(0)
